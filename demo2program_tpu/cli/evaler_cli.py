@@ -25,7 +25,7 @@ def main(argv=None):
     p.add_argument("--no_loss", action="store_true", default=False)
     p.add_argument("--pred_program", action="store_true", default=False)
     p.add_argument("--result_data", action="store_true", default=False)
-    p.add_argument("--result_data_path", type=str, default="result.hdf5")
+    p.add_argument("--result_data_path", type=str, default="result.npz")
     p.add_argument("--id_list", type=str, default=None)
     p.add_argument("--unseen_test", action="store_true", default=False)
     p.add_argument("--quiet", action="store_true", default=False)

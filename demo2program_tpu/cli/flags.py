@@ -27,12 +27,6 @@ def base_parser():
     p.add_argument("--num_lstm_cell_units", type=int, default=512)
     p.add_argument("--demo_aggregation", type=str, default="avgpool",
                    choices=["concat", "avgpool", "maxpool"])
-    p.add_argument("--cell_impl", type=str, default="xla",
-                   choices=["xla", "pallas", "pallas_jnp"],
-                   help="LSTM step implementation: XLA-fused scan ops, the "
-                        "fused Pallas kernel (ops/pallas_lstm.py), or the "
-                        "pallas param layout with pure-jnp math (evaluate "
-                        "pallas checkpoints off-TPU)")
     p.add_argument("--scheduled_sampling", action="store_true",
                    default=False)
     p.add_argument("--scheduled_sampling_decay_steps", type=int,

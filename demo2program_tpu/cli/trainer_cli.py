@@ -16,7 +16,7 @@ from demo2program_tpu.utils import log
 def _stage_already_done(train_dir):
     """True when `train_dir` holds a checkpoint at (or past) its recorded
     resume.json target — relaunching such a stage would pay the full input
-    setup (for ViZDoom, a multi-GB HBM cache load+push) only to log
+    setup (for ViZDoom, a multi-GB device cache load+push) only to log
     "Nothing to do". Lets idempotent suite scripts re-invoke completed
     stages for free."""
     import json

@@ -1,4 +1,5 @@
-"""Karel dataset generator — writes the reference's HDF5 schema in ONE pass.
+"""Karel dataset generator — writes the reference's dataset schema in ONE
+pass, into `data.npz` (data/store.py).
 
 The reference builds its dataset in three sequential scripts
 (`karel_env/generator.py` → `append_demonstration.py` → `add_per.py`); we
@@ -37,7 +38,6 @@ off runaway programs around 100 calls, and since accepted demos must have
 import os
 from dataclasses import dataclass, field
 
-import h5py
 import numpy as np
 
 from demo2program_tpu.envs import KarelWorld, KarelStateGenerator
@@ -45,6 +45,7 @@ from demo2program_tpu.envs.karel import batch_to_states
 from demo2program_tpu.dsl import karel_interp, karel_parser
 from demo2program_tpu.dsl.karel_vocab import KarelVocab
 from demo2program_tpu.dsl.karel_sampler import KarelProgramSampler
+from demo2program_tpu.data.store import NpzWriter
 from demo2program_tpu.utils import log
 
 
@@ -187,7 +188,7 @@ def generate(cfg: GeneratorConfig, progress_every=500, backend="auto"):
     sampler = KarelProgramSampler(seed=cfg.seed)
     sgen = KarelStateGenerator(seed=cfg.seed)
 
-    f = h5py.File(os.path.join(cfg.dir_name, "data.hdf5"), "w")
+    f = NpzWriter(os.path.join(cfg.dir_name, "data.npz"))
     id_file = open(os.path.join(cfg.dir_name, "id.txt"), "w")
 
     count = 0

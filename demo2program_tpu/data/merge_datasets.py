@@ -10,9 +10,9 @@ vizdoom_max_init_pos_len take the max across shards, and split sizes add up.
 import argparse
 import os
 
-import h5py
 import numpy as np
 
+from demo2program_tpu.data.store import NpzWriter, data_file, open_store
 from demo2program_tpu.utils import log
 
 _CONSISTENT_KEYS = ["num_program_tokens", "num_action_tokens",
@@ -26,13 +26,13 @@ _SUM_KEYS = ["num_train", "num_test", "num_val"]
 
 def merge(shard_dirs, out_dir):
     os.makedirs(out_dir, exist_ok=True)
-    out = h5py.File(os.path.join(out_dir, "data.hdf5"), "w")
+    out = NpzWriter(os.path.join(out_dir, "data.npz"))
     id_out = open(os.path.join(out_dir, "id.txt"), "w")
 
     meta = {}
     count = 0
     for shard_idx, shard in enumerate(shard_dirs):
-        f = h5py.File(os.path.join(shard, "data.hdf5"), "r")
+        f = open_store(data_file(shard))
         info = f["data_info"]
         for key in _CONSISTENT_KEYS:
             v = info[key][()]
@@ -56,7 +56,9 @@ def merge(shard_dirs, out_dir):
             # shard-index prefix, as the reference does
             # (`merge_datasets.py:95-96`)
             new_id = f"{shard_idx}_{old_id}"
-            f.copy(f[old_id], out, name=new_id)
+            grp = out.create_group(new_id)
+            for key in f[old_id].keys():
+                grp[key] = f[old_id][key][()]
             id_out.write(new_id + "\n")
             count += 1
         f.close()

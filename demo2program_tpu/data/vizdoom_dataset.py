@@ -1,4 +1,4 @@
-"""ViZDoom HDF5 dataset reader.
+"""ViZDoom dataset reader.
 
 Parity target: `vizdoom_env/dataset_vizdoom.py` — like the Karel loader plus:
   * perception history stored as p_v_h / test_p_v_h (`:110-122`)
@@ -11,12 +11,10 @@ Parity target: `vizdoom_env/dataset_vizdoom.py` — like the Karel loader plus:
 num_k slicing happens at the raw-read stage (`:62, 73, 107, 113, 125`).
 """
 
-import os.path as osp
-
-import h5py
 import numpy as np
 
 from demo2program_tpu.data.dataset import KarelDataset, _scalar, all_ids
+from demo2program_tpu.data.store import data_file, open_store
 from demo2program_tpu.utils import log
 
 
@@ -29,9 +27,9 @@ class VizdoomDataset(KarelDataset):
         self.is_train = is_train
         self.dataset_path = dataset_path
 
-        filename = osp.join(dataset_path, "data.hdf5")
+        filename = data_file(dataset_path)
         log.info("Reading %s ...", filename)
-        self.data = h5py.File(filename, "r")
+        self.data = open_store(filename)
         info = self.data["data_info"]
         self.num_demo = int(_scalar(info["num_demo_per_program"]))
         self.max_demo_len = int(_scalar(info["max_demo_length"]))

@@ -15,9 +15,9 @@ reference's spawn-box and count ranges (`generator.py:20-83`).
 import os
 from dataclasses import dataclass
 
-import h5py
 import numpy as np
 
+from demo2program_tpu.data.store import NpzWriter
 from demo2program_tpu.dsl.vizdoom_sampler import (
     DoomProgramGenerator, DoomProgramGeneratorIfElse)
 from demo2program_tpu.dsl.vizdoom_vocab import VizDoomDSLVocab
@@ -115,7 +115,7 @@ def generate(cfg: VizdoomGeneratorConfig):
     percepts = world_list[0].get_perception_vector_cond()
     vocab = VizDoomDSLVocab(perception_type=cfg.perception_type)
 
-    f = h5py.File(os.path.join(cfg.dir_name, "data.hdf5"), "w")
+    f = NpzWriter(os.path.join(cfg.dir_name, "data.npz"))
     id_file = open(os.path.join(cfg.dir_name, "id.txt"), "w")
     pos_keys = gen.get_pos_keys()
     count = 0

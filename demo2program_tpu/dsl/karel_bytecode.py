@@ -4,7 +4,7 @@ The reference scores execution accuracy by replaying each predicted program
 serially inside tf.py_func (`model_full.py:747-787`) — one Python interpreter
 rollout per (batch element x demo). We instead compile programs to a dense
 integer bytecode and execute the whole (batch x k) grid of rollouts in
-parallel on the TPU (ops/vm.py).
+parallel on the accelerator (ops/vm.py).
 
 The instruction stream embeds the reference interpreter's *call-budget*
 checkpoints exactly (see dsl/karel_interp.py for the transcription from

@@ -16,7 +16,7 @@ an explicit pushdown: a stack of expected symbols, a (symbol x token)
 legality table, replacement/push tables, and per-symbol minimum completion
 counts. The SAME tables drive both the host oracle here and the on-device
 constrained decoder (models/decoder.py via jnp copies) — so the masks used
-on TPU are property-tested against the grammar on host.
+on device are property-tested against the grammar on host.
 
 Grammar note: nested `not c( ... c)` is allowed, matching the runtime parser
 (karel_parser.py) which adjudicates syntax accuracy.

@@ -15,7 +15,7 @@ ViZDoom C++ engine (`vizdoom_env/README.md:6-15`) with:
     commands with the reference's fixed entity-id layout (`:354-380`)
 
 The engine import is gated: everything except the Vizdoom_env class itself
-works without the `vizdoom` package (the TPU training/eval path only needs
+works without the `vizdoom` package (the training/eval path only needs
 the engine for dataset generation and execution-accuracy scoring of doom
 programs).
 """

@@ -139,7 +139,7 @@ class KarelScorer:
         (= highest-scoring; beams arrive score-sorted) beam whose program
         reproduces ALL seen demos — the model's own inputs, no test-demo
         information — falling back to the best-scoring beam. The reference
-        has no counterpart (greedy only); this is the TPU framework's
+        has no counterpart (greedy only); this is this framework's
         inference-time search: each beam is verified as one batched VM call.
         Returns pick (bs,) int."""
         bs, K, _ = beam_tokens.shape

@@ -3,11 +3,11 @@
 from dataclasses import dataclass
 from typing import Optional
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from demo2program_tpu.models import nn
 from demo2program_tpu.models.encoder import (
-    DemoEncoder, SecondPathEncoder, SummarizeFeature)
+    demo_encoder, lstm_encoder, summarize_feature)
 
 
 @dataclass(frozen=True)
@@ -46,9 +46,6 @@ class ModelConfig:
     sprite_style: str = "v2"
     # program end token id ('m)' for karel, domain vocab supplies otherwise)
     program_end_token: int = 3
-    # LSTM cell implementation: "xla" (flax OptimizedLSTMCell) or
-    # "pallas" (fused single-kernel step, ops/pallas_lstm.py)
-    cell_impl: str = "xla"
     # beam width for decode_mode='beam'
     beam_width: int = 5
     # compute dtype for forward/backward ("float32" | "bfloat16"); params,
@@ -86,25 +83,18 @@ def unfold_k(x, bs, k):
     return x.reshape((bs, k) + x.shape[1:])
 
 
-class SinglePassDemoEncoder(nn.Module):
+def single_pass_demo_encoder(s, cfg, s_h, demo_len):
     """Synthesis-baseline encoder: one CNN+LSTM pass over each of the k demos
     (`model_synthesis.py:322-336`). Returns per-demo feature histories and
     final (h, c), each with a (bs, k, ...) layout."""
-    cfg: ModelConfig
-    train: bool
-
-    @nn.compact
-    def __call__(self, s_h, demo_len):
-        bs, k = s_h.shape[0], s_h.shape[1]
-        hist, h, c = DemoEncoder(
-            self.cfg.num_lstm_cell_units, self.train,
-            self.cfg.dataset_type, self.cfg.cell_impl,
-            name="demo_encoder")(fold_k(s_h), fold_k(demo_len))
-        return (unfold_k(hist, bs, k), unfold_k(h, bs, k),
-                unfold_k(c, bs, k))
+    bs, k = s_h.shape[0], s_h.shape[1]
+    hist, h, c = demo_encoder(s.child("demo_encoder"), fold_k(s_h),
+                              fold_k(demo_len), cfg.num_lstm_cell_units,
+                              cfg.dataset_type)
+    return (unfold_k(hist, bs, k), unfold_k(h, bs, k), unfold_k(c, bs, k))
 
 
-class TwoPassDemoEncoder(nn.Module):
+def two_pass_demo_encoder(s, cfg, s_h, demo_len, rn_aggregation="rn"):
     """Summarizer/full-model encoder (`model_full.py:367-404`): first pass
     per demo, average the final states across demos, then a second LSTM pass
     over the first-pass feature histories initialized with that summary.
@@ -112,48 +102,37 @@ class TwoPassDemoEncoder(nn.Module):
     rn_aggregation: 'rn' (residual mean + rn_pool; full model) or 'rn_pure'
     (summarizer baseline).
     """
-    cfg: ModelConfig
-    train: bool
-    rn_aggregation: str = "rn"
+    bs, k = s_h.shape[0], s_h.shape[1]
+    units = cfg.num_lstm_cell_units
+    flat_len = fold_k(demo_len)
 
-    @nn.compact
-    def __call__(self, s_h, demo_len):
-        bs, k = s_h.shape[0], s_h.shape[1]
-        units = self.cfg.num_lstm_cell_units
-        flat_len = fold_k(demo_len)
+    hist1, h1, c1 = demo_encoder(s.child("demo_encoder"), fold_k(s_h),
+                                 flat_len, units, cfg.dataset_type)
 
-        hist1, h1, c1 = DemoEncoder(
-            units, self.train, self.cfg.dataset_type, self.cfg.cell_impl,
-            name="demo_encoder")(fold_k(s_h), flat_len)
+    # cross-demo summaries of the first-pass final states (avgpool,
+    # `model_full.py:380-385`)
+    summary_h = unfold_k(h1, bs, k).mean(axis=1)
+    summary_c = unfold_k(c1, bs, k).mean(axis=1)
 
-        # cross-demo summaries of the first-pass final states (avgpool,
-        # `model_full.py:380-385`)
-        summary_h = unfold_k(h1, bs, k).mean(axis=1)
-        summary_c = unfold_k(c1, bs, k).mean(axis=1)
+    # second pass, every demo initialized with the same summary state
+    rep = lambda x: jnp.repeat(x, k, axis=0)
+    hist2, h2, c2 = lstm_encoder(
+        s.child("second_path").child("lstm"), hist1, flat_len, units,
+        init_state=(rep(summary_c), rep(summary_h)))
 
-        # second pass, every demo initialized with the same summary state
-        rep = lambda x: jnp.repeat(x, k, axis=0)
-        hist2, h2, c2 = SecondPathEncoder(
-            units, self.cfg.cell_impl, name="second_path")(
-            hist1, flat_len, rep(summary_c), rep(summary_h))
-
-        demo_h = unfold_k(h2, bs, k)   # (bs, k, units)
-        demo_c = unfold_k(c2, bs, k)
-        demo_h_summary = SummarizeFeature(
-            units, self.train, self.rn_aggregation,
-            name="demo_h_summary")(demo_h)
-        demo_c_summary = SummarizeFeature(
-            units, self.train, self.rn_aggregation,
-            name="demo_c_summary")(demo_c)
-        return {
-            "feature_history": unfold_k(hist2, bs, k),
-            "demo_h": demo_h, "demo_c": demo_c,
-            "demo_h_summary": demo_h_summary,
-            "demo_c_summary": demo_c_summary,
-        }
+    demo_h = unfold_k(h2, bs, k)   # (bs, k, units)
+    demo_c = unfold_k(c2, bs, k)
+    return {
+        "feature_history": unfold_k(hist2, bs, k),
+        "demo_h": demo_h, "demo_c": demo_c,
+        "demo_h_summary": summarize_feature(
+            s.child("demo_h_summary"), demo_h, units, rn_aggregation),
+        "demo_c_summary": summarize_feature(
+            s.child("demo_c_summary"), demo_c, units, rn_aggregation),
+    }
 
 
-def aggregate_baseline(demo_h, demo_c, aggregation, units):
+def aggregate_baseline(s, demo_h, demo_c, aggregation, units):
     """Synthesis-baseline aggregation (`model_synthesis.py:336-358`).
 
     'concat' note: the reference feeds the (bs, k*units) concat straight into
@@ -166,9 +145,8 @@ def aggregate_baseline(demo_h, demo_c, aggregation, units):
         return demo_h.max(axis=1), demo_c.max(axis=1)
     if aggregation == "concat":
         bs = demo_h.shape[0]
-        h = demo_h.reshape(bs, -1)
-        c = demo_c.reshape(bs, -1)
-        proj_h = nn.Dense(units, name="concat_proj_h")
-        proj_c = nn.Dense(units, name="concat_proj_c")
-        return proj_h(h), proj_c(c)
+        return (nn.dense(s.child("concat_proj_h"), demo_h.reshape(bs, -1),
+                         units),
+                nn.dense(s.child("concat_proj_c"), demo_c.reshape(bs, -1),
+                         units))
     raise ValueError(f"unknown demo aggregation {aggregation!r}")

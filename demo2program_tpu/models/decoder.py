@@ -32,80 +32,54 @@ batch-global stop step (dynamic_decode early exit); we compute logits for all
 max_len steps. Predicted tokens/lengths — everything that feeds accuracy,
 syntax and execution metrics — are unaffected.
 
-TPU shape notes: teacher forcing embeds all steps as one (bs*L, V+1)@(V+1, E)
+Shape notes: teacher forcing embeds all steps as one (bs*L, V+1)@(V+1, E)
 matmul and projects all hidden states as one (bs*L, H)@(H, V) matmul; only
 the recurrence itself is a scan.
 """
 
-import flax.linen as nn
+
 import jax
 import jax.numpy as jnp
 
-from demo2program_tpu.models.ops import FC, make_lstm_cell
+from demo2program_tpu.models import nn
 
 
-def _cell_only_step(cell, carry, x):
-    return cell(carry, x)
+def _stack_time(ys):
+    """lax.scan stacks outputs on axis 0; decoders report (bs, L, ...)."""
+    return jax.tree_util.tree_map(lambda a: jnp.swapaxes(a, 0, 1), ys)
 
 
-_scan_cell = nn.scan(
-    _cell_only_step,
-    variable_broadcast="params",
-    split_rngs={"params": False},
-    in_axes=1, out_axes=1)
+class TokenDecoder:
+    """LSTM token decoder with shared-weight unroll modes. Parameters live
+    under `<scope>/core/`: `embedding` (token_dim+1 rows), the LSTM `cell`
+    and the bias-free `output_projection`."""
 
-
-class _DecoderCore(nn.Module):
-    """Embedding + LSTM cell + projection bundle, so full decode steps can be
-    lifted through nn.scan as a single module."""
-    token_dim: int
-    units: int
-    cell_impl: str = "xla"
-
-    def setup(self):
-        self.embedding = self.param(
-            "embedding",
-            nn.initializers.uniform(scale=0.02),  # ~ tf U(-0.01, 0.01)
-            (self.token_dim + 1, self.units))
-        self.cell = make_lstm_cell(self.units, self.cell_impl)
-        self.proj = nn.Dense(self.token_dim, use_bias=False,
-                             name="output_projection")
+    def __init__(self, s, token_dim, units, end_token):
+        core = s.child("core")
+        self.token_dim = token_dim
+        self.end_token = end_token
+        self.table = nn.embedding(core, token_dim + 1, units)
+        self.cell = nn.lstm_params(core.child("cell"), units, units)
+        self.w_out = core.child("output_projection").param(
+            "kernel", nn.lecun_normal, (units, token_dim))
 
     def embed(self, ids):
         # one_hot of id == token_dim+1 (out of range) -> zero vector
-        oh = jax.nn.one_hot(ids, self.token_dim + 1,
-                            dtype=self.embedding.dtype)
-        return oh @ self.embedding
+        return nn.embed(self.table, ids)
 
-    def run_tf(self, init_c, init_h, input_ids):
-        """Teacher-forced unroll over pre-known input ids (bs, L)."""
-        inputs = self.embed(input_ids)
-        _, outs = _scan_cell(self.cell, (init_c, init_h), inputs)
-        return self.proj(outs)
+    def project(self, x):
+        x, w = nn.promote(x, self.w_out)
+        return x @ w
 
-    def __call__(self, carry, inp):
-        """One full decode step for lifted scans. carry[1] is the previous
-        token id; inp carries mode-specific payload."""
-        (c, h), prev_tok = carry
+    def step(self, state, prev_tok, inp=None):
+        """One full decode step. `inp` = (gt_x, use_prev) selects between
+        the previous token's embedding and a ground-truth input."""
         x = self.embed(prev_tok)
         if inp is not None:
             gt_x, use_prev = inp
             x = jnp.where(use_prev[:, None], x, gt_x)
-        (c, h), out = self.cell((c, h), x)
-        logits = self.proj(out)
-        return ((c, h), logits)
-
-
-class TokenDecoder(nn.Module):
-    """LSTM token decoder with shared-weight unroll modes."""
-    token_dim: int
-    units: int
-    end_token: int
-    cell_impl: str = "xla"
-
-    def setup(self):
-        self.core = _DecoderCore(self.token_dim, self.units,
-                                 self.cell_impl, name="core")
+        state, out = nn.lstm_step(self.cell, state, x)
+        return state, self.project(out)
 
     def _shift_gt(self, gt_tokens):
         start = jnp.full((gt_tokens.shape[0], 1), self.token_dim + 1,
@@ -114,33 +88,39 @@ class TokenDecoder(nn.Module):
 
     def teacher_forced(self, init_c, init_h, gt_tokens):
         """gt_tokens (bs, L) -> logits (bs, L, token_dim)."""
-        return self.core.run_tf(init_c, init_h, self._shift_gt(gt_tokens))
+        inputs = self.embed(self._shift_gt(gt_tokens))
+        _, outs = nn.time_major_scan(
+            lambda carry, x: nn.lstm_step(self.cell, carry, x),
+            (init_c, init_h), inputs)
+        return self.project(outs)
 
     def greedy(self, init_c, init_h, max_len):
-        """-> (logits (bs, L, V), tokens (bs, L), lengths (bs,))."""
+        """-> (logits (bs, L, V), tokens (bs, L), lengths (bs,)).
+
+        Past a sequence's end token the unroll keeps feeding its argmax, as
+        the reference's greedy helper does (so the logits there are the
+        reference's), but the emitted token is the end token again, as in a
+        finished beam."""
         bs = init_c.shape[0]
         end_token = self.end_token
 
-        def step(core, carry, _):
+        def step(carry, _):
             state, prev, finished, length, t = carry
-            state, logits = core((state, prev), None)
+            state, logits = self.step(state, prev)
             tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+            out = jnp.where(finished, end_token, tok)
             newly = (tok == end_token) & ~finished
             length = jnp.where(newly, t + 1, length)
             finished = finished | newly
-            return (state, tok, finished, length, t + 1), (logits, tok)
+            return (state, tok, finished, length, t + 1), (logits, out)
 
-        scan = nn.scan(
-            step,
-            variable_broadcast="params",
-            split_rngs={"params": False},
-            out_axes=1, length=max_len)
         carry0 = ((init_c, init_h),
                   jnp.full((bs,), self.token_dim, jnp.int32),
                   jnp.zeros(bs, bool),
                   jnp.full(bs, max_len, jnp.int32),
                   jnp.zeros((), jnp.int32))
-        final, (logits, tokens) = scan(self.core, carry0, None)
+        final, ys = jax.lax.scan(step, carry0, None, length=max_len)
+        logits, tokens = _stack_time(ys)
         return logits, tokens, final[3]
 
     def beam(self, init_c, init_h, max_len, beam_width=5):
@@ -162,12 +142,11 @@ class TokenDecoder(nn.Module):
         def rep(x):  # (bs, H) -> (bs*K, H)
             return jnp.repeat(x, K, axis=0)
 
-        def step(core, carry, _):
+        def step(carry, _):
             (c, h), prev, scores, finished, length, t = carry
             # one decode step for all beams (folded into batch)
-            (c, h), logits = core(((c, h), prev.reshape(bs * K)), None)
-            logp = jax.nn.log_softmax(
-                logits.reshape(bs, K, V), axis=-1)
+            (c, h), logits = self.step((c, h), prev.reshape(bs * K))
+            logp = jax.nn.log_softmax(logits.reshape(bs, K, V), axis=-1)
             # finished beams: only end_token, at no cost
             end_only = jnp.full((V,), NEG).at[end_token].set(0.0)
             logp = jnp.where(finished[:, :, None], end_only[None, None, :],
@@ -190,11 +169,6 @@ class TokenDecoder(nn.Module):
             return ((c, h), tok, top_scores, finished, length, t + 1), \
                 (tok, parent)
 
-        scan = nn.scan(
-            step,
-            variable_broadcast="params",
-            split_rngs={"params": False},
-            out_axes=1, length=max_len)
         # beam 0 starts live; the rest start at -inf so step 1 fans out
         scores0 = jnp.full((bs, K), NEG).at[:, 0].set(0.0)
         carry0 = ((rep(init_c), rep(init_h)),
@@ -203,7 +177,8 @@ class TokenDecoder(nn.Module):
                   jnp.zeros((bs, K), bool),
                   jnp.full((bs, K), max_len, jnp.int32),
                   jnp.zeros((), jnp.int32))
-        final, (toks, parents) = scan(self.core, carry0, None)
+        final, (toks, parents) = jax.lax.scan(step, carry0, None,
+                                              length=max_len)
         _, _, scores, _, lengths, _ = final
 
         # backtrack the surviving beams through the parent pointers
@@ -215,10 +190,8 @@ class TokenDecoder(nn.Module):
             return beam_idx, tok
 
         init_idx = jnp.tile(jnp.arange(K)[None, :], (bs, 1))
-        _, rev_tokens = jax.lax.scan(
-            backtrack, init_idx,
-            (jnp.moveaxis(toks, 1, 0)[::-1],
-             jnp.moveaxis(parents, 1, 0)[::-1]))
+        _, rev_tokens = jax.lax.scan(backtrack, init_idx,
+                                     (toks[::-1], parents[::-1]))
         all_tokens = jnp.moveaxis(rev_tokens[::-1], 0, 2)  # (bs, K, L)
 
         best = jnp.argmax(scores, axis=1)
@@ -232,8 +205,8 @@ class TokenDecoder(nn.Module):
     def greedy_constrained(self, init_c, init_h, max_len, syntax,
                            sample_rng=None):
         """Syntax-constrained decoding with the pushdown tables from
-        dsl/karel_syntax.py running entirely on-device — the TPU-native
-        replacement for the reference's per-step tf.py_func mask server
+        dsl/karel_syntax.py running entirely on-device — the replacement for
+        the reference's per-step tf.py_func mask server
         (`models/seq2seq_helper.py:228-277`).
 
         With sample_rng=None this is syntax_greedy (masked argmax); with an
@@ -242,8 +215,6 @@ class TokenDecoder(nn.Module):
         candidate is masked out (budget impossibility), token 0 is emitted
         (the reference argmaxes an all-zero masked distribution).
         """
-        import jax
-
         from demo2program_tpu.dsl.karel_syntax import (
             POP, STACK_DEPTH, SYMBOL_MIN, initial_stack)
 
@@ -261,9 +232,9 @@ class TokenDecoder(nn.Module):
         step_rngs = (jax.random.split(sample_rng, max_len)
                      if sample_rng is not None else None)
 
-        def step(core, carry, rng_t):
+        def step(carry, rng_t):
             state, prev, finished, length, t, stack, sp, msum = carry
-            state, logits = core((state, prev), None)
+            state, logits = self.step(state, prev)
 
             top = stack[bidx, jnp.clip(sp - 1, 0, STACK_DEPTH - 1)]
             empty = sp <= 0
@@ -308,18 +279,14 @@ class TokenDecoder(nn.Module):
             return (state, tok, finished, length, t + 1, stack, sp, msum), \
                 (logits, tok)
 
-        scan = nn.scan(
-            step,
-            variable_broadcast="params",
-            split_rngs={"params": False},
-            in_axes=0, out_axes=1, length=max_len)
         carry0 = ((init_c, init_h),
                   jnp.full((bs,), self.token_dim, jnp.int32),
                   jnp.zeros(bs, bool),
                   jnp.full(bs, max_len, jnp.int32),
                   jnp.zeros((), jnp.int32),
                   stack0, sp0, msum0)
-        final, (logits, tokens) = scan(self.core, carry0, step_rngs)
+        final, ys = jax.lax.scan(step, carry0, step_rngs, length=max_len)
+        logits, tokens = _stack_time(ys)
         return logits, tokens, final[3]
 
     def scheduled(self, init_c, init_h, gt_tokens, sampling_prob, rng,
@@ -331,45 +298,37 @@ class TokenDecoder(nn.Module):
         logit argmax) feed the train-time metrics
         (`model_synthesis.py:441-447`)."""
         bs, L = gt_tokens.shape
-        gt_in = self.core.embed(self._shift_gt(gt_tokens))  # (bs, L, E)
+        gt_in = self.embed(self._shift_gt(gt_tokens))  # (bs, L, E)
         step_rngs = jax.random.split(rng, 2 * L).reshape(L, 2)
 
-        def step(core, carry, gt_x, rngs):
+        def step(carry, xs):
+            gt_x, rngs = xs
             state, prev_tok, use_prev = carry
-            state, logits = core((state, prev_tok), (gt_x, use_prev))
+            state, logits = self.step(state, prev_tok, (gt_x, use_prev))
             sampled = jax.random.categorical(
                 rngs[0], logits).astype(jnp.int32)
             do_sample = jax.random.bernoulli(rngs[1], sampling_prob, (bs,))
             return (state, sampled, do_sample), (logits, sampled)
 
-        scan = nn.scan(
-            step,
-            variable_broadcast="params",
-            split_rngs={"params": False},
-            in_axes=(1, 0), out_axes=1)
         carry0 = ((init_c, init_h),
                   jnp.zeros(bs, jnp.int32), jnp.zeros(bs, bool))
-        _, (logits, sampled) = scan(self.core, carry0, gt_in, step_rngs)
+        _, ys = jax.lax.scan(step, carry0,
+                             (jnp.swapaxes(gt_in, 0, 1), step_rngs))
+        logits, sampled = _stack_time(ys)
         if return_sampled:
             return logits, sampled
         return logits
 
 
-class VectorDecoder(nn.Module):
+def vector_decoder(s, init_c, init_h, gt_vectors, out_dim, units):
     """Perception-vector decoder head (`model_full.py:564-599`): inputs are
     the (unshifted) target vectors through an FC+BN embedding
-    (`Per_Encoder`, `model_full.py:308-316`); always teacher-forced."""
-    out_dim: int
-    units: int
-    train: bool
-    cell_impl: str = "xla"
-
-    @nn.compact
-    def __call__(self, init_c, init_h, gt_vectors):
-        # gt_vectors: (bs, T, out_dim), shipped as uint8
-        x = FC(self.units, self.train, activation="none",
-               name="per_embed")(gt_vectors.astype(jnp.float32))
-        cell = make_lstm_cell(self.units, self.cell_impl)
-        _, outs = _scan_cell(cell, (init_c, init_h), x)
-        return nn.Dense(self.out_dim, use_bias=False,
-                        name="output_projection")(outs)
+    (`Per_Encoder`, `model_full.py:308-316`); always teacher-forced.
+    gt_vectors: (bs, T, out_dim), shipped as uint8."""
+    x = nn.fc_bn(s.child("per_embed"), gt_vectors.astype(jnp.float32), units,
+                 activation="none")
+    cell = nn.lstm_params(s.child("OptimizedLSTMCell_0"), units, units)
+    _, outs = nn.time_major_scan(
+        lambda carry, xt: nn.lstm_step(cell, carry, xt), (init_c, init_h), x)
+    return nn.dense(s.child("output_projection"), outs, out_dim,
+                    use_bias=False)

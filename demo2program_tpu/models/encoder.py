@@ -5,156 +5,101 @@ Demo_Encoder CNN+LSTM, SecondPathEncoder) and the rn_pool / SummarizeFeature
 aggregators (`model_full.py:333-362`; the summarizer baseline uses the pure —
 non-residual — rn variant, `model_summarizer.py:345-355`).
 
-TPU-first re-design: the reference unrolls a Python loop over the k demos,
-building k graph copies with shared weights (`model_full.py:373-398`). Here
-the k axis is folded into the batch — one CNN application over (bs*k*T)
-frames and one `lax.scan` LSTM over (bs*k) sequences — keeping the MXU fed
-with large batched matmuls instead of k small ones.
+Re-design: the reference unrolls a Python loop over the k demos, building k
+graph copies with shared weights (`model_full.py:373-398`). Here the k axis
+is folded into the batch — one CNN application over (bs*k*T) frames and one
+`lax.scan` LSTM over (bs*k) sequences — so every matmul is batched over all
+demos instead of k small ones.
 
 dynamic_rnn length semantics replicated: outputs beyond each sequence's
 length are zeros; the final state is the state at the last valid step
 (`model_full.py:254-257`).
 """
 
-import flax.linen as nn
 import jax.numpy as jnp
 
-from demo2program_tpu.models.ops import Conv2D, FC, make_lstm_cell
+from demo2program_tpu.models import nn
 
 
-class StateEncoder(nn.Module):
+def state_encoder(s, frames, dataset_type="karel"):
     """Per-frame CNN: 3 conv layers for Karel grids, 5 for ViZDoom frames
-    (`model_full.py:216-231`); 3x3 kernels, stride 2, 16/32/48(/48/48) ch."""
-    train: bool
-    dataset_type: str = "karel"
-
-    @nn.compact
-    def __call__(self, s):  # (B, h, w, depth) -> (B, feat)
-        s = s.astype(jnp.float32)  # demos arrive as uint8
-        x = Conv2D(16, self.train, name="conv1")(s)
-        x = Conv2D(32, self.train, name="conv2")(x)
-        x = Conv2D(48, self.train, name="conv3")(x)
-        if self.dataset_type == "vizdoom":
-            x = Conv2D(48, self.train, name="conv4")(x)
-            x = Conv2D(48, self.train, name="conv5")(x)
-        return x.reshape(x.shape[0], -1)
+    (`model_full.py:216-231`); 3x3 kernels, stride 2, 16/32/48(/48/48) ch.
+    (B, h, w, depth) -> (B, feat)."""
+    x = frames.astype(jnp.float32)  # demos arrive as uint8
+    widths = [16, 32, 48] + ([48, 48] if dataset_type == "vizdoom" else [])
+    for i, ch in enumerate(widths):
+        x = nn.conv_bn(s.child(f"conv{i + 1}"), x, ch)
+    return x.reshape(x.shape[0], -1)
 
 
-def _masked_step(cell, carry, inp):
-    """One masked LSTM step: frozen past each sequence's length."""
-    c, h = carry
-    x, v = inp  # x: (B, D), v: (B, 1) validity
-    (c_new, h_new), out = cell((c, h), x)
-    c_next = jnp.where(v, c_new, c)
-    h_next = jnp.where(v, h_new, h)
-    out = jnp.where(v, out, jnp.zeros_like(out))
-    return (c_next, h_next), out
+def lstm_encoder(s, xs, seq_len, units, init_state=None):
+    """Masked LSTM over (B, T, D), frozen past each sequence's length.
+    Returns (outputs (B, T, units), final h, final c)."""
+    B, T, D = xs.shape
+    if init_state is None:
+        init_state = (jnp.zeros((B, units), xs.dtype),
+                      jnp.zeros((B, units), xs.dtype))
+    valid = (jnp.arange(T)[None, :] < seq_len[:, None])[:, :, None]
+    cell = nn.lstm_params(s.child("OptimizedLSTMCell_0"), D, units)
+
+    def step(carry, inp):
+        c, h = carry
+        x, v = inp
+        (c_new, h_new), out = nn.lstm_step(cell, (c, h), x)
+        return ((jnp.where(v, c_new, c), jnp.where(v, h_new, h)),
+                jnp.where(v, out, jnp.zeros_like(out)))
+
+    (c_fin, h_fin), outs = nn.time_major_scan(step, init_state, (xs, valid))
+    return outs, h_fin, c_fin
 
 
-class LSTMEncoder(nn.Module):
-    """Masked LSTM over (B, T, D) with optional initial (c, h) state."""
-    units: int
-    cell_impl: str = "xla"
-
-    @nn.compact
-    def __call__(self, xs, seq_len, init_state=None):
-        B, T, _ = xs.shape
-        if init_state is None:
-            init_state = (jnp.zeros((B, self.units), xs.dtype),
-                          jnp.zeros((B, self.units), xs.dtype))
-        valid = (jnp.arange(T)[None, :] < seq_len[:, None])[:, :, None]
-
-        scan = nn.scan(
-            _masked_step,
-            variable_broadcast="params",
-            split_rngs={"params": False},
-            in_axes=1, out_axes=1)
-        cell = make_lstm_cell(self.units, self.cell_impl)
-        (c_fin, h_fin), outs = scan(cell, init_state, (xs, valid))
-        return outs, h_fin, c_fin
-
-
-class BiLSTMEncoder(nn.Module):
+def bilstm_encoder(s, xs, seq_len, units, init_state=None):
     """Bidirectional masked LSTM; outputs and final states are SUMMED over
     the two directions, as the induction baseline does
     (`model_induction.py:435-449` stacks then reduce_sums)."""
-    units: int
-    cell_impl: str = "xla"
-
-    @nn.compact
-    def __call__(self, xs, seq_len, init_state=None):
-        B, T, _ = xs.shape
-        fwd_out, fwd_h, fwd_c = LSTMEncoder(
-            self.units, self.cell_impl, name="fwd")(xs, seq_len, init_state)
-        # per-sequence reversal within each sequence's length
-        # (tf.reverse_sequence semantics)
-        t_idx = jnp.arange(T)[None, :]
-        rev_idx = jnp.where(t_idx < seq_len[:, None],
-                            seq_len[:, None] - 1 - t_idx, t_idx)
-        xs_rev = jnp.take_along_axis(xs, rev_idx[:, :, None], axis=1)
-        bwd_out_rev, bwd_h, bwd_c = LSTMEncoder(
-            self.units, self.cell_impl, name="bwd")(xs_rev, seq_len,
-                                                    init_state)
-        bwd_out = jnp.take_along_axis(bwd_out_rev, rev_idx[:, :, None],
-                                      axis=1)
-        return fwd_out + bwd_out, fwd_h + bwd_h, fwd_c + bwd_c
+    T = xs.shape[1]
+    fwd_out, fwd_h, fwd_c = lstm_encoder(s.child("fwd"), xs, seq_len, units,
+                                         init_state)
+    # per-sequence reversal within each sequence's length
+    # (tf.reverse_sequence semantics)
+    t_idx = jnp.arange(T)[None, :]
+    rev_idx = jnp.where(t_idx < seq_len[:, None],
+                        seq_len[:, None] - 1 - t_idx, t_idx)
+    xs_rev = jnp.take_along_axis(xs, rev_idx[:, :, None], axis=1)
+    bwd_out_rev, bwd_h, bwd_c = lstm_encoder(s.child("bwd"), xs_rev, seq_len,
+                                             units, init_state)
+    bwd_out = jnp.take_along_axis(bwd_out_rev, rev_idx[:, :, None], axis=1)
+    return fwd_out + bwd_out, fwd_h + bwd_h, fwd_c + bwd_c
 
 
-class DemoEncoder(nn.Module):
+def demo_encoder(s, s_h, seq_len, units, dataset_type="karel"):
     """CNN per frame -> LSTM over time (`model_full.py:235-258`).
 
     Input (B, T, h, w, depth); B is typically bs*k (demo axis folded in).
     Returns (feature history (B, T, units), final h, final c).
     """
-    units: int
-    train: bool
-    dataset_type: str = "karel"
-    cell_impl: str = "xla"
-
-    @nn.compact
-    def __call__(self, s_h, seq_len):
-        B, T = s_h.shape[0], s_h.shape[1]
-        frames = s_h.reshape((B * T,) + s_h.shape[2:])
-        feats = StateEncoder(self.train, self.dataset_type,
-                             name="state_encoder")(frames)
-        feats = feats.reshape(B, T, -1)
-        return LSTMEncoder(self.units, self.cell_impl,
-                           name="lstm")(feats, seq_len)
+    B, T = s_h.shape[0], s_h.shape[1]
+    frames = s_h.reshape((B * T,) + s_h.shape[2:])
+    feats = state_encoder(s.child("state_encoder"), frames, dataset_type)
+    return lstm_encoder(s.child("lstm"), feats.reshape(B, T, -1), seq_len,
+                        units)
 
 
-class SecondPathEncoder(nn.Module):
-    """Second-pass LSTM over first-pass feature history, initialized with the
-    cross-demo summary state (`model_full.py:260-277,387-398`)."""
-    units: int
-    cell_impl: str = "xla"
-
-    @nn.compact
-    def __call__(self, feature_history, seq_len, summary_c, summary_h):
-        return LSTMEncoder(self.units, self.cell_impl, name="lstm")(
-            feature_history, seq_len, init_state=(summary_c, summary_h))
-
-
-class RNPool(nn.Module):
+def rn_pool(s, feat, units):
     """Relation-network pooling over the k demo features
     (`model_full.py:333-349`): all k x k pairwise concats -> 2 x FC(units,
-    BN+lrelu) -> mean over both k axes. The pairwise tensor is reshaped to
-    one (bs*k*k, 2v) matmul — MXU-shaped by construction."""
-    units: int
-    train: bool
-
-    @nn.compact
-    def __call__(self, feat):  # (bs, k, v)
-        bs, k, v = feat.shape
-        tile1 = jnp.broadcast_to(feat[:, None, :, :], (bs, k, k, v))
-        tile2 = jnp.broadcast_to(feat[:, :, None, :], (bs, k, k, v))
-        x = jnp.concatenate([tile1, tile2], axis=3).reshape(bs * k * k, 2 * v)
-        x = FC(self.units, self.train, name="fc1")(x)
-        x = FC(self.units, self.train, name="fc2")(x)
-        return x.reshape(bs, k, k, -1).mean(axis=(1, 2))
+    BN+lrelu) -> mean over both k axes, as one (bs*k*k, 2v) matmul."""
+    bs, k, v = feat.shape
+    tile1 = jnp.broadcast_to(feat[:, None, :, :], (bs, k, k, v))
+    tile2 = jnp.broadcast_to(feat[:, :, None, :], (bs, k, k, v))
+    x = jnp.concatenate([tile1, tile2], axis=3).reshape(bs * k * k, 2 * v)
+    x = nn.fc_bn(s.child("fc1"), x, units)
+    x = nn.fc_bn(s.child("fc2"), x, units)
+    return x.reshape(bs, k, k, -1).mean(axis=(1, 2))
 
 
-class SummarizeFeature(nn.Module):
-    """Cross-demo aggregation (`model_full.py:351-362`).
+def summarize_feature(s, features, units, aggregation="avgpool"):
+    """Cross-demo aggregation (`model_full.py:351-362`) of (bs, k, v).
 
     aggregation:
       'avgpool'     mean over k
@@ -162,18 +107,11 @@ class SummarizeFeature(nn.Module):
       'rn_pure'     rn_pool only     (summarizer baseline variant,
                                       `model_summarizer.py:345-355`)
     """
-    units: int
-    train: bool
-    aggregation: str = "avgpool"
-
-    @nn.compact
-    def __call__(self, features):  # (bs, k, v)
-        if self.aggregation == "avgpool":
-            return features.mean(axis=1)
-        if self.aggregation == "rn":
-            return features.mean(axis=1) + RNPool(
-                self.units, self.train, name="rn_pool")(features)
-        if self.aggregation == "rn_pure":
-            return RNPool(self.units, self.train,
-                          name="rn_pool")(features)
-        raise ValueError(f"unknown aggregation {self.aggregation!r}")
+    if aggregation == "avgpool":
+        return features.mean(axis=1)
+    if aggregation == "rn":
+        return features.mean(axis=1) + rn_pool(s.child("rn_pool"), features,
+                                               units)
+    if aggregation == "rn_pure":
+        return rn_pool(s.child("rn_pool"), features, units)
+    raise ValueError(f"unknown aggregation {aggregation!r}")

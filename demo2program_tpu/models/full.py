@@ -4,42 +4,39 @@ Parity target: `models/model_full.py` — program decoder initialized from the
 residual rn summaries (`:351-362,399-404`), plus per-demo action decoders
 (shared weights across k, `:525-562`) and perception decoders (`:564-599`).
 
-TPU re-design: the reference builds k weight-shared decoder copies in a
-Python loop; here the k axis folds into the batch for one decoder
-application (bs*k sequences through one scan).
+Re-design: the reference builds k weight-shared decoder copies in a Python
+loop; here the k axis folds into the batch for one decoder application
+(bs*k sequences through one scan).
 
 Quirk replicated: the "greedy" perception head is teacher-forced
 (`model_full.py:409`), hence numerically identical to the training head —
 we expose the same tensor under both names.
 """
 
-import flax.linen as nn
-
 from demo2program_tpu.models.common import (
-    ModelConfig, TwoPassDemoEncoder, fold_k, unfold_k)
-from demo2program_tpu.models.decoder import TokenDecoder, VectorDecoder
+    fold_k, two_pass_demo_encoder, unfold_k)
+from demo2program_tpu.models.decoder import TokenDecoder, vector_decoder
+from demo2program_tpu.models.nn import Model
 
 
-class FullModel(nn.Module):
-    cfg: ModelConfig
-    train: bool
+class FullModel(Model):
 
-    @nn.compact
-    def __call__(self, batch, include_greedy=True, sampling_prob=None,
-                 rng=None, decode_mode="greedy"):
+    def forward(self, s, batch, include_greedy=True, sampling_prob=None,
+                rng=None, decode_mode="greedy"):
         cfg = self.cfg
         bs = batch["s_h"].shape[0]
         k = cfg.k
+        units = cfg.num_lstm_cell_units
         demo_len = batch["demo_len"].astype("int32")
-        enc = TwoPassDemoEncoder(cfg, self.train, rn_aggregation="rn",
-                                 name="encoder")(batch["s_h"], demo_len)
+        enc = two_pass_demo_encoder(s.child("encoder"), cfg, batch["s_h"],
+                                    demo_len, rn_aggregation="rn")
 
         out = {}
 
         # --- program decoder ---
         program_decoder = TokenDecoder(
-            cfg.dim_program_token, cfg.num_lstm_cell_units,
-            cfg.program_end_token, cfg.cell_impl, name="program_decoder")
+            s.child("program_decoder"), cfg.dim_program_token, units,
+            cfg.program_end_token)
         gt_tokens = batch["program_tokens"].astype("int32")
         if sampling_prob is not None and self.train:
             out["pred_program_logits"], out["pred_program_tokens"] = \
@@ -53,9 +50,8 @@ class FullModel(nn.Module):
         # --- action decoders (k folded into batch; weights shared like the
         # reference's reuse=i>0 loop) ---
         action_decoder = TokenDecoder(
-            cfg.action_space, cfg.num_lstm_cell_units,
-            cfg.action_space - 1,  # <e> end token (`model_full.py:430-431`)
-            cfg.cell_impl, name="action_decoder")
+            s.child("action_decoder"), cfg.action_space, units,
+            cfg.action_space - 1)  # <e> end token (`model_full.py:430-431`)
         a_c = fold_k(enc["demo_c"])
         a_h = fold_k(enc["demo_h"])
         gt_actions = fold_k(batch["a_h_tokens"].astype("int32"))
@@ -63,10 +59,8 @@ class FullModel(nn.Module):
         out["pred_action_logits"] = unfold_k(act_logits, bs, k)
 
         # --- perception decoders ---
-        per_decoder = VectorDecoder(
-            cfg.per_dim, cfg.num_lstm_cell_units, self.train,
-            cfg.cell_impl, name="per_decoder")
-        per_logits = per_decoder(a_c, a_h, fold_k(batch["per"]))
+        per_logits = vector_decoder(s.child("per_decoder"), a_c, a_h,
+                                    fold_k(batch["per"]), cfg.per_dim, units)
         out["pred_per_logits"] = unfold_k(per_logits, bs, k)
         out["greedy_per_logits"] = out["pred_per_logits"]  # teacher-forced
 

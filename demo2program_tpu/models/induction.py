@@ -27,66 +27,51 @@ stack_subsequent_state=False.
 
 Both attn_type variants are implemented: 'luong' and 'luong_monotonic'
 (reference `:645-656`; the monotonic energies/recursive alignment are in
-_AttnDecoderCore below, tested in tests/test_induction.py).
+_AttnDecoder below, tested in tests/test_induction.py).
 """
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
-from demo2program_tpu.models.common import ModelConfig, fold_k, unfold_k
-from demo2program_tpu.models.encoder import BiLSTMEncoder, LSTMEncoder
-from demo2program_tpu.models.ops import Conv2D, FC, make_lstm_cell
-from demo2program_tpu.models.common import aggregate_baseline
+from demo2program_tpu.models import nn
+from demo2program_tpu.models.common import (
+    aggregate_baseline, fold_k, unfold_k)
+from demo2program_tpu.models.encoder import bilstm_encoder, lstm_encoder
+from demo2program_tpu.models.nn import Model
 
 
-class InductionStateEncoder(nn.Module):
-    """CNN (+ optional FCs) with the perception vector concatenated."""
-    cfg: ModelConfig
-    train: bool
-
-    @nn.compact
-    def __call__(self, s, per):  # s: (B, h, w, depth), per: (B, per_dim)
-        s = s.astype(jnp.float32)  # demos arrive as uint8
-        per = per.astype(jnp.float32)
-        x = Conv2D(16, self.train, name="conv1")(s)
-        x = Conv2D(32, self.train, name="conv2")(x)
-        x = Conv2D(48, self.train, name="conv3")(x)
-        if self.cfg.pixel_input:
-            x = Conv2D(48, self.train, name="conv4")(x)
-            x = Conv2D(48, self.train, name="conv5")(x)
-        x = x.reshape(x.shape[0], -1)
-        if self.cfg.state_encoder_fc:
-            x = FC(512, self.train, name="fc1")(x)
-            x = FC(512, self.train, name="fc2")(x)
-        return jnp.concatenate([x, per], axis=-1)
+def induction_state_encoder(s, cfg, frames, per):
+    """CNN (+ optional FCs) with the perception vector concatenated.
+    frames: (B, h, w, depth), per: (B, per_dim)."""
+    x = frames.astype(jnp.float32)  # demos arrive as uint8
+    widths = [16, 32, 48] + ([48, 48] if cfg.pixel_input else [])
+    for i, ch in enumerate(widths):
+        x = nn.conv_bn(s.child(f"conv{i + 1}"), x, ch)
+    x = x.reshape(x.shape[0], -1)
+    if cfg.state_encoder_fc:
+        x = nn.fc_bn(s.child("fc1"), x, 512)
+        x = nn.fc_bn(s.child("fc2"), x, 512)
+    return jnp.concatenate([x, per.astype(jnp.float32)], axis=-1)
 
 
-class InductionDemoEncoder(nn.Module):
-    cfg: ModelConfig
-    train: bool
-
-    @nn.compact
-    def __call__(self, s_h, per, seq_len):
-        # s_h: (B, T, h, w, depth); per: (B, T, per_dim)
-        B, T = s_h.shape[0], s_h.shape[1]
-        frames = s_h.reshape((B * T,) + s_h.shape[2:])
-        pers = per.reshape(B * T, per.shape[-1])
-        feats = InductionStateEncoder(self.cfg, self.train,
-                                      name="state_encoder")(frames, pers)
-        feats = feats.reshape(B, T, -1)
-        enc_cls = (BiLSTMEncoder
-                   if self.cfg.encoder_rnn_type == "bilstm" else LSTMEncoder)
-        outs, h, c = enc_cls(self.cfg.num_lstm_cell_units,
-                             self.cfg.cell_impl,
-                             name="lstm")(feats, seq_len)
-        if self.cfg.concat_state_feature_direct_prediction:
-            outs = jnp.concatenate([outs, feats], axis=-1)
-        return outs, h, c
+def induction_demo_encoder(s, cfg, s_h, per, seq_len):
+    """s_h: (B, T, h, w, depth); per: (B, T, per_dim)."""
+    B, T = s_h.shape[0], s_h.shape[1]
+    frames = s_h.reshape((B * T,) + s_h.shape[2:])
+    pers = per.reshape(B * T, per.shape[-1])
+    feats = induction_state_encoder(s.child("state_encoder"), cfg, frames,
+                                    pers).reshape(B, T, -1)
+    encode = (bilstm_encoder if cfg.encoder_rnn_type == "bilstm"
+              else lstm_encoder)
+    outs, h, c = encode(s.child("lstm"), feats, seq_len,
+                        cfg.num_lstm_cell_units)
+    if cfg.concat_state_feature_direct_prediction:
+        outs = jnp.concatenate([outs, feats], axis=-1)
+    return outs, h, c
 
 
-class _AttnDecoderCore(nn.Module):
-    """One attention-decoder step bundle for nn.scan lifting.
+class _AttnDecoder:
+    """The attention-decoder step (parameters under `manipulation/`).
 
     attn_type 'luong': softmax alignments. 'luong_monotonic': Raffel et al.
     monotonic attention in the parallel-training formulation used by TF's
@@ -98,33 +83,26 @@ class _AttnDecoderCore(nn.Module):
 
     with alignments initialized to a dirac at position 0.
     """
-    action_space: int
-    units: int
-    cell_impl: str = "xla"
-    attn_type: str = "luong"
 
-    def setup(self):
-        self.embedding = self.param(
-            "embedding", nn.initializers.uniform(scale=0.02),
-            (self.action_space + 1, self.units))
-        self.cell = make_lstm_cell(self.units, self.cell_impl)
+    def __init__(self, s, action_space, units, mem_units, attn_type):
+        self.attn_type = attn_type
+        self.table = nn.embedding(s, action_space + 1, units)
+        self.cell = nn.lstm_params(s.child("cell"), 2 * units, units)
         # shared Luong memory projection + shared attention layer (see module
         # docstring re the reference's variable aliasing)
-        self.attn_layer = nn.Dense(self.units, use_bias=False,
-                                   name="attention_layer")
-        self.proj = nn.Dense(self.action_space, use_bias=False,
-                             name="output_projection")
+        self.w_attn = s.child("attention_layer").param(
+            "kernel", nn.lecun_normal, (units + mem_units, units))
+        self.w_out = s.child("output_projection").param(
+            "kernel", nn.lecun_normal, (units, action_space))
 
     def embed(self, ids):
-        oh = jax.nn.one_hot(ids, self.action_space + 1,
-                            dtype=self.embedding.dtype)
-        return oh @ self.embedding
+        return nn.embed(self.table, ids)
 
     def __call__(self, carry, x_emb, memory, keys, mask):
         """x_emb: (bs, E); memory/keys: (bs, k, T, units); mask: (bs, k, T)"""
         (c, h), attention, prev_align = carry
         cell_in = jnp.concatenate([x_emb, attention], axis=-1)
-        (c, h), out = self.cell((c, h), cell_in)
+        (c, h), out = nn.lstm_step(self.cell, (c, h), cell_in)
         # Luong scores against all k memories at once
         scores = jnp.einsum("bu,bktu->bkt", out, keys)
         scores = jnp.where(mask, scores, -1e9)
@@ -144,20 +122,17 @@ class _AttnDecoderCore(nn.Module):
         k = memory.shape[1]
         out_tiled = jnp.broadcast_to(out[:, None, :],
                                      (out.shape[0], k, out.shape[-1]))
-        att_k = self.attn_layer(
-            jnp.concatenate([out_tiled, ctx], axis=-1))  # (bs, k, units)
-        attention = att_k.mean(axis=1)
-        logits = self.proj(attention)
-        return ((c, h), attention, align), logits
+        att_in, w_attn = nn.promote(
+            jnp.concatenate([out_tiled, ctx], axis=-1), self.w_attn)
+        attention = (att_in @ w_attn).mean(axis=1)     # (bs, units)
+        att, w_out = nn.promote(attention, self.w_out)
+        return ((c, h), attention, align), att @ w_out
 
 
-class InductionModel(nn.Module):
-    cfg: ModelConfig
-    train: bool
+class InductionModel(Model):
 
-    @nn.compact
-    def __call__(self, batch, include_greedy=True, sampling_prob=None,
-                 rng=None):
+    def forward(self, s, batch, include_greedy=True, sampling_prob=None,
+                rng=None):
         cfg = self.cfg
         if cfg.attn_type not in ("luong", "luong_monotonic"):
             raise ValueError(f"unknown attn_type {cfg.attn_type!r}")
@@ -165,7 +140,6 @@ class InductionModel(nn.Module):
         k, test_k = cfg.k, cfg.test_k
         units = cfg.num_lstm_cell_units
         demo_len = batch["demo_len"].astype("int32")
-        test_len = batch["test_demo_len"].astype("int32")
 
         s_h, per = batch["s_h"], batch["per"]
         if cfg.stack_subsequent_state:
@@ -178,19 +152,20 @@ class InductionModel(nn.Module):
             per = per[:, :, :-1]
             demo_len = demo_len - 1
 
-        hist, h, c = InductionDemoEncoder(cfg, self.train, name="encoder")(
-            fold_k(s_h), fold_k(per), fold_k(demo_len))
-        memory = unfold_k(hist, bs, k)          # (bs, k, T, units)
+        hist, h, c = induction_demo_encoder(
+            s.child("encoder"), cfg, fold_k(s_h), fold_k(per),
+            fold_k(demo_len))
+        memory = unfold_k(hist, bs, k)          # (bs, k, T, mem_units)
         demo_h = unfold_k(h, bs, k)
         demo_c = unfold_k(c, bs, k)
         h_sum, c_sum = aggregate_baseline(
-            demo_h, demo_c, cfg.demo_aggregation, units)
+            s, demo_h, demo_c, cfg.demo_aggregation, units)
 
-        core = _AttnDecoderCore(cfg.action_space, units, cfg.cell_impl,
-                                cfg.attn_type, name="manipulation")
+        core = _AttnDecoder(s.child("manipulation"), cfg.action_space, units,
+                            memory.shape[-1], cfg.attn_type)
         # precompute Luong keys once: one big matmul
-        keys = nn.Dense(units, use_bias=False,
-                        name="memory_layer")(memory)
+        keys = nn.dense(s.child("memory_layer"), memory, units,
+                        use_bias=False)
         T = memory.shape[2]
         mask = (jnp.arange(T)[None, None, :]
                 < demo_len[:, :, None])          # (bs, k, T)
@@ -205,47 +180,40 @@ class InductionModel(nn.Module):
         init_c, init_h = rep(h_sum), rep(c_sum)
         att0 = jnp.zeros((bs * test_k, units))
         # monotonic attention starts with a dirac alignment at position 0
-        T_mem = memory.shape[2]
-        align0 = jnp.zeros((bs * test_k, k, T_mem)).at[:, :, 0].set(1.0)
+        align0 = jnp.zeros((bs * test_k, k, T)).at[:, :, 0].set(1.0)
 
         gt = fold_k(batch["test_a_h_tokens"].astype("int32"))  # (bs*tk, T)
         start = jnp.full((bs * test_k, 1), cfg.action_space + 1, gt.dtype)
         gt_in = jnp.concatenate([start, gt[:, :-1]], axis=1)
 
-        def tf_step(core, carry, ids):
-            x = core.embed(ids)
-            return core(carry, x, mem_r, keys_r, mask_r)
+        def tf_step(carry, ids):
+            return core(carry, core.embed(ids), mem_r, keys_r, mask_r)
 
-        scan_tf = nn.scan(tf_step, variable_broadcast="params",
-                          split_rngs={"params": False},
-                          in_axes=1, out_axes=1)
-        carry0 = (((init_c, init_h), att0, align0))
-        _, logits = scan_tf(core, carry0, gt_in)
+        carry0 = ((init_c, init_h), att0, align0)
+        _, logits = nn.time_major_scan(tf_step, carry0, gt_in)
         out = {"pred_action_logits": unfold_k(logits, bs, test_k)}
 
         if include_greedy:
             end_token = cfg.action_space - 1
             max_len = gt.shape[1]
 
-            def greedy_step(core, carry, _):
+            def greedy_step(carry, _):
                 inner, prev, finished, length, t = carry
-                x = core.embed(prev)
-                inner, logits = core(inner, x, mem_r, keys_r, mask_r)
+                inner, logits = core(inner, core.embed(prev), mem_r, keys_r,
+                                     mask_r)
                 tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
                 newly = (tok == end_token) & ~finished
                 length = jnp.where(newly, t + 1, length)
                 finished = finished | newly
                 return (inner, tok, finished, length, t + 1), (logits, tok)
 
-            scan_g = nn.scan(greedy_step, variable_broadcast="params",
-                             split_rngs={"params": False},
-                             out_axes=1, length=max_len)
             g0 = (carry0,
                   jnp.full((bs * test_k,), cfg.action_space, jnp.int32),
                   jnp.zeros(bs * test_k, bool),
                   jnp.full(bs * test_k, max_len, jnp.int32),
                   jnp.zeros((), jnp.int32))
-            final, (g_logits, g_tokens) = scan_g(core, g0, None)
+            final, ys = jax.lax.scan(greedy_step, g0, None, length=max_len)
+            g_logits, g_tokens = (jnp.swapaxes(a, 0, 1) for a in ys)
             out.update(
                 greedy_action_logits=unfold_k(g_logits, bs, test_k),
                 greedy_action_tokens=unfold_k(g_tokens, bs, test_k),

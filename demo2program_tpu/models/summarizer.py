@@ -6,28 +6,24 @@ topology to the full model but with PURE rn_pool aggregation (no residual
 mean, `model_summarizer.py:345-355`) and only the program decoder.
 """
 
-import flax.linen as nn
-
-from demo2program_tpu.models.common import ModelConfig, TwoPassDemoEncoder
+from demo2program_tpu.models.common import two_pass_demo_encoder
 from demo2program_tpu.models.decoder import TokenDecoder
+from demo2program_tpu.models.nn import Model
 
 
-class SummarizerModel(nn.Module):
-    cfg: ModelConfig
-    train: bool
+class SummarizerModel(Model):
 
-    @nn.compact
-    def __call__(self, batch, include_greedy=True, sampling_prob=None,
-                 rng=None, decode_mode="greedy"):
+    def forward(self, s, batch, include_greedy=True, sampling_prob=None,
+                rng=None, decode_mode="greedy"):
         cfg = self.cfg
-        enc = TwoPassDemoEncoder(cfg, self.train, rn_aggregation="rn_pure",
-                                 name="encoder")(
-            batch["s_h"], batch["demo_len"].astype("int32"))
+        enc = two_pass_demo_encoder(
+            s.child("encoder"), cfg, batch["s_h"],
+            batch["demo_len"].astype("int32"), rn_aggregation="rn_pure")
 
-        decoder = TokenDecoder(cfg.dim_program_token,
+        decoder = TokenDecoder(s.child("program_decoder"),
+                               cfg.dim_program_token,
                                cfg.num_lstm_cell_units,
-                               cfg.program_end_token, cfg.cell_impl,
-                               name="program_decoder")
+                               cfg.program_end_token)
         gt_tokens = batch["program_tokens"].astype("int32")
         out = {}
         if sampling_prob is not None and self.train:

@@ -6,33 +6,28 @@ decoder with teacher-forced / scheduled-sampling / greedy unrolls
 (`:385-490`). No summarizer second pass, no action/perception heads.
 """
 
-import flax.linen as nn
-
 from demo2program_tpu.models.common import (
-    ModelConfig, SinglePassDemoEncoder, aggregate_baseline)
+    aggregate_baseline, single_pass_demo_encoder)
 from demo2program_tpu.models.decoder import TokenDecoder
+from demo2program_tpu.models.nn import Model
 
 
-class SynthesisModel(nn.Module):
-    cfg: ModelConfig
-    train: bool
+class SynthesisModel(Model):
 
-    @nn.compact
-    def __call__(self, batch, include_greedy=True, sampling_prob=None,
-                 rng=None, decode_mode="greedy"):
+    def forward(self, s, batch, include_greedy=True, sampling_prob=None,
+                rng=None, decode_mode="greedy"):
         cfg = self.cfg
-        s_h = batch["s_h"]
         demo_len = batch["demo_len"].astype("int32")
 
-        _, demo_h, demo_c = SinglePassDemoEncoder(
-            cfg, self.train, name="encoder")(s_h, demo_len)
+        _, demo_h, demo_c = single_pass_demo_encoder(
+            s.child("encoder"), cfg, batch["s_h"], demo_len)
         summary_h, summary_c = aggregate_baseline(
-            demo_h, demo_c, cfg.demo_aggregation, cfg.num_lstm_cell_units)
+            s, demo_h, demo_c, cfg.demo_aggregation, cfg.num_lstm_cell_units)
 
-        decoder = TokenDecoder(cfg.dim_program_token,
+        decoder = TokenDecoder(s.child("program_decoder"),
+                               cfg.dim_program_token,
                                cfg.num_lstm_cell_units,
-                               cfg.program_end_token, cfg.cell_impl,
-                               name="program_decoder")
+                               cfg.program_end_token)
         gt_tokens = batch["program_tokens"].astype("int32")
         out = {}
         if sampling_prob is not None and self.train:

@@ -5,8 +5,8 @@ source); `available()` reports whether a toolchain/library is usable, and
 callers fall back to the pure-Python interpreter when it is not.
 
 `run_batch` executes bytecode from dsl/karel_bytecode.py — identical
-instruction semantics to the host interpreter and the TPU VM, property-tested
-in tests/test_native.py.
+instruction semantics to the host interpreter and the on-device VM,
+property-tested in tests/test_native.py.
 """
 
 import ctypes

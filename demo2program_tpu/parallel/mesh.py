@@ -2,11 +2,11 @@
 
 The reference is strictly single-GPU (`trainer.py:134-138` pins
 device_count={'GPU': 1}; no tf.distribute anywhere — SURVEY.md §2.6). The
-TPU-native parallelism is therefore a new design, not a port:
+parallelism is therefore a new design, not a port:
 
-  * one mesh axis 'data': the batch is sharded across all chips; parameters
-    and optimizer state are replicated. jit inserts the psum gradient
-    all-reduce over ICI automatically from the sharding annotations.
+  * one mesh axis 'data': the batch is sharded across all devices;
+    parameters and optimizer state are replicated. jit inserts the gradient
+    all-reduce from the sharding annotations.
   * the k demos per task are an internal batch axis, folded into the leading
     dim inside the models (models/encoder.py) — they shard with the batch.
   * TP/PP/EP are deliberately out of scope: the largest model is ~30M params

@@ -14,9 +14,9 @@ import argparse
 import collections
 import os
 
-import h5py
 import numpy as np
 
+from demo2program_tpu.data.store import NpzWriter, open_store
 from demo2program_tpu.dsl.karel_vocab import KarelVocab
 from demo2program_tpu.dsl.karel_bytecode import compile_tokens, \
     DEFAULT_MAX_CODE_LEN
@@ -132,8 +132,8 @@ def main(argv=None):
         "train_tf_result", "test_tf_result",
         "train_greedy_result", "test_greedy_result"]}
 
-    with h5py.File(args.data_hdf5, "r") as fd, \
-            h5py.File(args.output_hdf5, "r") as fo:
+    with open_store(args.data_hdf5) as fd, \
+            open_store(args.output_hdf5) as fo:
         ids = [k for k in fo.keys() if k != "data_info"]
         pad_T = int(fd["data_info"]["max_demo_length"][()])
         for lo in range(0, len(ids), args.batch):
@@ -169,9 +169,9 @@ def main(argv=None):
         with open(path, "w") as f:
             f.write(report)
     if args.dump:
-        path = args.new_hdf5_path or f"{args.output_hdf5}.eval_exe.hdf5"
+        path = args.new_hdf5_path or f"{args.output_hdf5}.eval_exe.npz"
         correctness = ["wrong", "correct"]
-        with h5py.File(path, "w") as nf:
+        with NpzWriter(path) as nf:
             for did in results["train_tf_result"].outputs:
                 grp = nf.create_group(did)
                 for prefix, tr, te in [

@@ -1,4 +1,4 @@
-"""Prediction browser over evaler out_*.hdf5 dumps.
+"""Prediction browser over evaler out_* store dumps (.npz, or .hdf5).
 
 Parity target: `karel_env/tool/inspect_output.py` — joins an evaler output
 file with the dataset, showing ground-truth vs predicted programs,
@@ -9,9 +9,9 @@ rollout in ASCII. `--no_input` prints a non-interactive digest.
 import argparse
 import os
 
-import h5py
 import numpy as np
 
+from demo2program_tpu.data.store import open_store
 from demo2program_tpu.dsl import karel_interp, karel_parser
 from demo2program_tpu.dsl.karel_vocab import KarelVocab
 from demo2program_tpu.envs import KarelWorld
@@ -58,8 +58,8 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     vocab = KarelVocab()
-    with h5py.File(args.data_hdf5, "r") as data, \
-            h5py.File(args.output_hdf5, "r") as out:
+    with open_store(args.data_hdf5) as data, \
+            open_store(args.output_hdf5) as out:
         ids = [args.id] if args.id else \
             [k for k in out.keys() if k != "data_info"]
         for data_id in ids:

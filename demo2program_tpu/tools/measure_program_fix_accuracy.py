@@ -1,4 +1,4 @@
-"""Edit-distance-tolerant accuracy sweep over a result.hdf5 dump.
+"""Edit-distance-tolerant accuracy sweep over an evaler --result_data dump.
 
 Parity target: `vizdoom_env/measure_program_fix_accuracy.py` — for every
 prediction, computes the token-level edit distance to the ground truth and
@@ -8,14 +8,14 @@ distance d, and execution-correct OR within d (`:84-90`). Used to estimate
 how often predictions are "one edit away" from a working program.
 
 Works for both domains; ViZDoom execution needs the engine, Karel execution
-runs on the TPU VM.
+runs on the on-device VM.
 """
 
 import argparse
 
-import h5py
 import numpy as np
 
+from demo2program_tpu.data.store import open_store
 from demo2program_tpu.utils import log
 
 
@@ -66,17 +66,17 @@ def _karel_execution(result_file, data_file, vocab):
 def main(argv=None):
     p = argparse.ArgumentParser(
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
-    p.add_argument("--result_file", type=str, default="result.hdf5")
+    p.add_argument("--result_file", type=str, default="result.npz")
     p.add_argument("--data_file", type=str,
-                   default="datasets/karel_dataset/data.hdf5")
+                   default="datasets/karel_dataset/data.npz")
     p.add_argument("--dataset_type", type=str, default="karel",
                    choices=["karel", "vizdoom"])
     p.add_argument("--engine_config", type=str,
                    default="vizdoom_env/asset/default.cfg")
     args = p.parse_args(argv)
 
-    fr = h5py.File(args.result_file, "r")
-    ft = h5py.File(args.data_file, "r")
+    fr = open_store(args.result_file)
+    ft = open_store(args.data_file)
 
     if args.dataset_type == "karel":
         from demo2program_tpu.dsl.karel_vocab import KarelVocab

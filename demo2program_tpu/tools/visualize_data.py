@@ -9,9 +9,9 @@ CI / piped output).
 import argparse
 import os
 
-import h5py
 import numpy as np
 
+from demo2program_tpu.data.store import data_file, open_store
 from demo2program_tpu.dsl.karel_vocab import KarelVocab, ENV_ACTION_TO_TOKEN
 from demo2program_tpu.tools.karel_render import state2str
 
@@ -53,7 +53,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     vocab = KarelVocab()
-    with h5py.File(os.path.join(args.dataset_path, "data.hdf5"), "r") as f:
+    with open_store(data_file(args.dataset_path)) as f:
         if args.id:
             show_entry(f, args.id, vocab, not args.no_input, args.max_demos)
             return

@@ -2,7 +2,7 @@
 //
 // Executes the same (op, arg) bytecode emitted by
 // demo2program_tpu/dsl/karel_bytecode.py — one compiler, three executors
-// (host Python interpreter, TPU VM, this engine), all property-tested
+// (host Python interpreter, on-device VM, this engine), all property-tested
 // equivalent. Role: the hot host-side rollout loop of dataset generation
 // (reference: karel_env/generator.py's per-demo Python interpreter runs),
 // where Python-level stepping dominates. The engine runs a batch of
@@ -115,7 +115,7 @@ int karel_run_batch(const int32_t* bytecode, int n_progs, int code_len,
         bool cflag = false, fail = false, halt = false;
         int32_t ctr[MAX_LOOP_DEPTH];
         int sp = 0;
-        // same safety cap as the TPU VM
+        // same safety cap as the on-device VM
         const long max_steps = (long)(MAX_FUNC_CALL + 2) * code_len;
 
         for (long step = 0; step < max_steps && !fail && !halt; ++step) {

@@ -1,10 +1,10 @@
 """Pre-build the doom device-cache disk sidecar on CPU only.
 
-The HBM cache build (train/device_cache.py) spends ~25 min of random HDF5
-reads per dataset before the first training step can run. This script does
-that read pass ahead of time — no JAX device work, safe to run while the
-TPU is busy training another dataset — so the next trainer launch mmap-loads
-the packed .npy sidecar in ~minutes.
+The device-cache build (train/device_cache.py) reads every item of the
+dataset store before the first training step can run. This script does that
+read pass ahead of time on the CPU — no accelerator work, safe to run while
+the accelerator trains on another dataset — so the next trainer launch
+mmap-loads the packed .npy sidecar.
 
 Usage: python scripts/build_doom_cache_sidecar.py <dataset_path> [num_k]
 """

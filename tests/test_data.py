@@ -4,13 +4,13 @@ Generates a tiny Karel dataset into a tmpdir (session-scoped fixture, reused
 by model/e2e tests) and checks reference schema + loader conventions.
 """
 
-import h5py
 import numpy as np
 import pytest
 
 from demo2program_tpu.data import (
     KarelDataset, create_default_splits, BatchPipeline)
 from demo2program_tpu.data.karel_generator import GeneratorConfig, generate
+from demo2program_tpu.data.store import data_file, open_store
 from demo2program_tpu.dsl import karel_interp, karel_parser
 from demo2program_tpu.dsl.karel_vocab import KarelVocab
 from demo2program_tpu.envs import KarelWorld
@@ -28,7 +28,7 @@ def tiny_dataset_dir(tmp_path_factory):
 
 
 def test_schema_matches_reference(tiny_dataset_dir):
-    with h5py.File(f"{tiny_dataset_dir}/data.hdf5", "r") as f:
+    with open_store(data_file(tiny_dataset_dir)) as f:
         info = f["data_info"]
         assert int(info["num_program_tokens"][()]) == 50
         assert int(info["num_action_tokens"][()]) == 5
@@ -52,7 +52,7 @@ def test_stored_demos_replay_exactly(tiny_dataset_dir):
     """Every stored demo must be reproducible by executing the stored program
     from the stored initial state (the core dataset invariant)."""
     vocab = KarelVocab()
-    with h5py.File(f"{tiny_dataset_dir}/data.hdf5", "r") as f:
+    with open_store(data_file(tiny_dataset_dir)) as f:
         ids = [k for k in f.keys() if k != "data_info"][:5]
         for id_ in ids:
             g = f[id_]
@@ -95,7 +95,7 @@ def test_loader_shapes_and_quirks(tiny_dataset_dir):
 
     # reference <e>-placement quirk: the end token sits at the per-program
     # max action length for EVERY demo (dataset_karel.py:69-76)
-    with h5py.File(f"{tiny_dataset_dir}/data.hdf5", "r") as f:
+    with open_store(data_file(tiny_dataset_dir)) as f:
         row_len = f[ds_train.ids[0]]["a_h"].shape[1]
     assert (item["a_h"][:, row_len, 5] == 1).all()
     # argmax of all-zero rows beyond row_len+1 decodes to 0 ('move')
@@ -123,7 +123,7 @@ def test_pipeline_batches(tiny_dataset_dir):
 
 def test_splits_json_override(tiny_dataset_dir, tmp_path):
     """A splits.json in the dataset dir re-partitions id.txt (subset-view
-    mechanism for trading train-split size against num_k under the HBM
+    mechanism for trading train-split size against num_k under the
     device-cache budget)."""
     import json
     import os
@@ -133,8 +133,7 @@ def test_splits_json_override(tiny_dataset_dir, tmp_path):
     tr0, te0, va0 = all_ids(tiny_dataset_dir)
     view = tmp_path / "subset_view"
     view.mkdir()
-    os.symlink(os.path.join(tiny_dataset_dir, "data.hdf5"),
-               view / "data.hdf5")
+    os.symlink(data_file(tiny_dataset_dir), view / "data.npz")
     # reorder id.txt: 6 train ids first, then the ORIGINAL test ids, then
     # the original val ids (surplus train ids dropped from every split)
     with open(os.path.join(tiny_dataset_dir, "id.txt")) as f:

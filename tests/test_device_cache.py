@@ -1,4 +1,4 @@
-"""HBM-resident doom pipeline: the device-cached batch, after on-device
+"""Device-resident doom pipeline: the device-cached batch, after on-device
 expansion, must match the stacked full-wire loader exactly."""
 
 import types
@@ -93,7 +93,7 @@ def test_device_cache_epochs(real_vizdoom_dir):  # noqa: F811
 def test_device_cache_set_batch_size(real_vizdoom_dir):  # noqa: F811
     """A stage change (reference bs 32 -> 8 recipe) re-aims the SAME pushed
     cache at a new batch size — scripts/doom_stage_runner.py relies on this
-    to pay the HBM push once per dataset instead of once per stage."""
+    to pay the device push once per dataset instead of once per stage."""
     ds, _, _ = create_vizdoom_splits(real_vizdoom_dir, num_k=2)
     cache = DoomDeviceCache(ds, batch_size=3, seed=1)
     b3 = next(cache)

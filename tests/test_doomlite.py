@@ -245,14 +245,13 @@ def test_generated_dataset_schema_and_replay(tiny_doom_dataset):
     """Real-engine dataset: schema parity + every stored demo replays
     bit-exactly from its stored init positions (the execution-accuracy
     ground truth)."""
-    import h5py
-
+    from demo2program_tpu.data.store import data_file, open_store
     from demo2program_tpu.dsl import vizdoom_interp, vizdoom_parser
     from demo2program_tpu.dsl.vizdoom_vocab import VizDoomDSLVocab
 
     vocab = VizDoomDSLVocab(perception_type="simple")
     w = make_world()
-    with h5py.File(f"{tiny_doom_dataset}/data.hdf5") as f:
+    with open_store(data_file(tiny_doom_dataset)) as f:
         info = f["data_info"]
         pos_keys = [k.decode() if isinstance(k, bytes) else k
                     for k in info["vizdoom_pos_keys"][()]]

@@ -4,7 +4,6 @@ artifacts."""
 import os
 import types
 
-import h5py
 import numpy as np
 import pytest
 
@@ -38,7 +37,7 @@ def test_evaler_end_to_end(tiny_dataset_dir, tmp_path):  # noqa: F811
         scheduled_sampling_decay_steps=20000,
         dataset_split="test", train_dir="", output_dir=str(tmp_path / "out"),
         max_steps=1, no_loss=False, pred_program=True,
-        result_data=True, result_data_path=str(tmp_path / "result.hdf5"),
+        result_data=True, result_data_path=str(tmp_path / "result.npz"),
         id_list=None, unseen_test=False, quiet=False,
         no_write_summary=False, write_summary=True,
         summary_file=str(tmp_path / "report.txt"))
@@ -67,12 +66,13 @@ def test_evaler_end_to_end(tiny_dataset_dir, tmp_path):  # noqa: F811
     with open(f"{base}.txt") as f:
         body = f.read()
     assert "gt: DEF run m(" in body and "greedy" in body
-    with h5py.File(f"{base}.hdf5", "r") as f:
+    from demo2program_tpu.data.store import open_store
+    with open_store(f"{base}.npz") as f:
         pid = list(f.keys())[0]
         assert "program_prediction" in f[pid]
-        assert f[pid]["program_syntax"][()] in (b"wrong", b"correct")
+        assert f[pid]["program_syntax"][()] in ("wrong", "correct")
         assert "greedy_num_execution_correct" in f[pid]
-    with h5py.File(tmp_path / "result.hdf5", "r") as f:
+    with open_store(str(tmp_path / "result.npz")) as f:
         pid = list(f.keys())[0]
         assert f[pid]["s_h"].shape[-1] == 16
         assert "pred_program" in f[pid]

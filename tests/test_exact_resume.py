@@ -84,7 +84,7 @@ def test_doom_cache_fast_forward(tmp_path):
     from demo2program_tpu.train.device_cache import DoomDeviceCache
 
     class _FakeCache(DoomDeviceCache):
-        # exercise only the cursor logic, not the HBM push
+        # exercise only the cursor logic, not the device push
         def __init__(self, n, bs, seed):
             self.batch_size = bs
             self.rng = np.random.RandomState(seed)

@@ -84,7 +84,7 @@ def test_native_no_error_mode():
 
 
 def test_generator_backends_produce_identical_datasets(tmp_path):
-    import h5py
+    from demo2program_tpu.data.store import data_file, open_store
     from demo2program_tpu.data.karel_generator import (
         GeneratorConfig, generate)
 
@@ -100,8 +100,8 @@ def test_generator_backends_produce_identical_datasets(tmp_path):
 
     ids = open(f"{dirs['python']}/id.txt").read()
     assert ids == open(f"{dirs['native']}/id.txt").read()
-    with h5py.File(f"{dirs['python']}/data.hdf5") as fp, \
-            h5py.File(f"{dirs['native']}/data.hdf5") as fn:
+    with open_store(data_file(dirs["python"])) as fp, \
+            open_store(data_file(dirs["native"])) as fn:
         for id_ in [k for k in fp.keys() if k != "data_info"]:
             for key in fp[id_]:
                 a, b = fp[id_][key][()], fn[id_][key][()]

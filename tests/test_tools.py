@@ -73,9 +73,9 @@ def test_levenshtein_and_sweep():
 
 
 def test_batch_check_ground_truth_and_corrupted(tiny_dataset_dir):  # noqa: F811
-    import h5py
+    from demo2program_tpu.data.store import data_file, open_store
     vocab = KarelVocab()
-    with h5py.File(f"{tiny_dataset_dir}/data.hdf5", "r") as f:
+    with open_store(data_file(tiny_dataset_dir)) as f:
         ids = [k for k in f.keys() if k != "data_info"][:4]
         programs = [vocab.intseq2str(f[i]["program"][()]) for i in ids]
         demos = [f[i]["s_h"][()] for i in ids]

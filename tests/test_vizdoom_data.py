@@ -1,9 +1,8 @@
 """ViZDoom dataset loader + model-path tests over a REAL engine-generated
 dataset (DoomLite, envs/doomlite.py) — these fixtures replaced the round-1
-hand-rolled synthetic HDF5 once the software engine landed, so the loader,
+hand-rolled synthetic datasets once the software engine landed, so the loader,
 model and scorer are exercised against genuine engine output."""
 
-import h5py
 import numpy as np
 import pytest
 
